@@ -10,18 +10,13 @@ import os
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-# Persistent compilation cache: repeat invocations skip the cold compile
-# (must be set before the first jax import).
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tpu")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 from lidar_odometry_tpu.config import load_config
 from lidar_odometry_tpu.io.kitti import KittiPlayer
 from lidar_odometry_tpu.utils import logging_util as log
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description="TPU-native KITTI LiDAR odometry")
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="KITTI LiDAR odometry")
     ap.add_argument("config", help="YAML config path (reference config/kitti.yaml schema)")
     ap.add_argument("--start", type=int, default=0)
     ap.add_argument("--end", type=int, default=None)
@@ -46,10 +41,10 @@ def main() -> int:
                     help="upload all chunks as fast as the reader allows "
                          "(bench methodology) instead of the 2-chunk "
                          "streaming bound")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     print("=" * 60)
-    print(" lidar_odometry_tpu — TPU-native LiDAR SLAM (KITTI player)")
+    print(" lidar_odometry_tpu — LiDAR SLAM (KITTI player)")
     print("=" * 60)
 
     cfg = load_config(args.config)

@@ -11,17 +11,12 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-# Persistent compilation cache: repeat invocations skip the cold compile
-# (must be set before the first jax import).
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tpu")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 from lidar_odometry_tpu.config import load_config
 from lidar_odometry_tpu.io.ply import PLYPlayer
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description="TPU-native PLY LiDAR odometry")
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="PLY LiDAR odometry")
     ap.add_argument("config")
     ap.add_argument("--start", type=int, default=0)
     ap.add_argument("--end", type=int, default=None)
@@ -36,10 +31,10 @@ def main() -> int:
     ap.add_argument("--live-viewer", type=int, nargs="?", const=8123,
                     default=None, metavar="PORT",
                     help="serve a live 3D view on localhost:PORT")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     print("=" * 60)
-    print(" lidar_odometry_tpu — TPU-native LiDAR SLAM (PLY player)")
+    print(" lidar_odometry_tpu — LiDAR SLAM (PLY player)")
     print("=" * 60)
 
     cfg = load_config(args.config)

@@ -211,11 +211,9 @@ class KittiPlayer:
 
         backend = None
         if shards > 0:
-            import jax
-            import numpy as _np
-            from jax.sharding import Mesh
             from ..models.map_backend import ShardedMapBackend
-            mesh = Mesh(_np.array(jax.devices()[:shards]), ("map",))
+            from ..parallel.mesh import make_mesh
+            mesh = make_mesh(shards, ("map",))
             self.cfg = self.cfg.replace(pgo_backend="distributed")
             backend = ShardedMapBackend(self.cfg, mesh)
             log.info("[KittiPlayer] sharded map over {} devices", shards)
@@ -351,13 +349,17 @@ class KittiPlayer:
                     log.info("[KittiPlayer] finish requested by viewer")
                     break
                 t0 = time.perf_counter()
-                # chunks 0-1 run synchronously: chunk 0 (stage-sampled,
-                # so it dispatches F-1 fused frames) and chunk 1 (full
-                # F) absorb the compiles/cache-loads of BOTH program
-                # shapes plus the first fetch; steady_fps then measures
-                # the same post-warmup region as the bench
+                # chunks 0-1 run synchronously: chunk 0 (full F) and
+                # chunk 1 (stage-sampled, so F-1 fused frames plus one
+                # per-frame pass) absorb the compiles/cache-loads of BOTH
+                # fused shapes and of the per-frame programs plus the
+                # first fetch; steady_fps then measures the same
+                # post-warmup region as the bench. (Sampling chunk 0
+                # would not do: its first frame only seeds the map, so
+                # the per-frame ICP would compile inside the steady
+                # region, at chunk 8.)
                 self.estimator.process_chunk(
-                    chunk, sample_stages=(c % 8 == 0),
+                    chunk, sample_stages=(c % 8 == 1),
                     defer_host=defer and c > 1)
                 if c == 1:
                     t_steady = time.perf_counter()

@@ -402,6 +402,9 @@ def sample_scan(world: List[Rect], pose: np.ndarray, n_points: int,
     weights = np.where(vertical, weights * wall_boost, weights)
     weights /= weights.sum()
 
+    origins = np.stack([r.origin for r in world])
+    us = np.stack([r.u for r in world])
+    vs = np.stack([r.v for r in world])
     pts = np.zeros((0, 3), np.float32)
     for _ in range(8):
         need = n_points - len(pts)
@@ -411,9 +414,7 @@ def sample_scan(world: List[Rect], pose: np.ndarray, n_points: int,
         ridx = rng.choice(len(world), size=k, p=weights)
         a = rng.random(k)[:, None]
         b = rng.random(k)[:, None]
-        cand = np.stack([world[i].origin for i in ridx]) \
-            + a * np.stack([world[i].u for i in ridx]) \
-            + b * np.stack([world[i].v for i in ridx])
+        cand = origins[ridx] + a * us[ridx] + b * vs[ridx]
         keep = np.linalg.norm(cand - sensor[None, :], axis=-1) < max_range
         pts = np.concatenate([pts, cand[keep].astype(np.float32)])
     pts = pts[:n_points]

@@ -3,7 +3,7 @@
 The reference has exactly ONE map implementation (a single-process hash
 table, reference src/database/VoxelMap.{h,cpp}) and ONE front door
 (`Estimator::process_frame`, reference src/processing/Estimator.cpp:116).
-The TPU build keeps the single front door but lets it run against either:
+This system keeps the single front door but lets it run against either:
 
   * `SingleChipMapBackend` — the plain device-resident map
     (ops/voxel_map.py) + single-chip ICP (ops/icp.py); or
@@ -139,9 +139,8 @@ class ShardedMapBackend:
         self.mesh_axis = mesh_axis
         # Batching K keyframe updates into one dispatch amortizes the
         # per-op latency floors that dominate the per-shard update at
-        # small O(scan/S) shapes (the strong-scaling blocker measured in
-        # SCALING.json round 2: a steady S=8 shard update is ~1.2 ms of
-        # which ~0.8 ms is fixed small-op latency). The map lags lookups
+        # small O(scan/S) shapes, where fixed small-op latency outweighs
+        # the per-shard work at high shard counts. The map lags lookups
         # by at most K-1 keyframes; evictions defer the same way they
         # already do under the bounded caps (delayed, never lost).
         self.update_batch = (update_batch if update_batch is not None

@@ -3,7 +3,7 @@ src/optimization/PoseGraphOptimizer.{h,cpp}).
 
 Faithful re-implementation of the reference solver in float64 numpy +
 scipy sparse (the reference runs this on the host background thread in
-double precision; the TPU-distributed Schur-complement variant lives in
+double precision; the device-distributed Schur-complement variant lives in
 parallel/distributed_pgo.py and shares these factor definitions):
 
   * GTSAM conventions: [rot, trans] tangent ordering

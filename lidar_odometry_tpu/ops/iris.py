@@ -1,4 +1,4 @@
-"""LiDAR-Iris place-recognition descriptor, batched in jnp (TPU-native
+"""LiDAR-Iris place-recognition descriptor, batched in jnp (array-program
 re-design of the vendored reference implementation,
 reference thirdparty/LidarIris/LidarIris.cpp).
 

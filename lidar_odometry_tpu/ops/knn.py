@@ -1,9 +1,9 @@
 """Batched k-nearest-neighbor search over voxel-binned point tables — the
-TPU replacement for nanoflann KD-trees (reference
+fixed-shape replacement for nanoflann KD-trees (reference
 src/util/PointCloudUtils.h:370-457 and the KDTree correspondence path,
 IterativeClosestPointOptimizer.cpp:647-767).
 
-Trees do not map to TPUs; instead points are bucketed into voxels of a
+Trees do not map to fixed-shape array programs; instead points are bucketed into voxels of a
 known bin size, sorted by packed voxel key, and each query gathers
 candidates from the 3x3x3 (or (2r+1)^3) neighborhood of its own voxel via
 binary search + fixed-width bucket windows, then selects the k nearest by

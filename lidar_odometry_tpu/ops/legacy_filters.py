@@ -3,7 +3,7 @@
 The reference defines three utility filters that its own pipeline never
 calls — `VoxelGrid` (std::map weighted centroids), `CropBox`, and
 `RangeFilter` — kept here for API completeness so a user of the
-reference finds the same surface. TPU-style: fixed-shape masked arrays
+reference finds the same surface. Array-program style: fixed-shape masked arrays
 instead of growing vectors (SURVEY.md §7); the hot-path downsampler is
 ops/voxel_filter.py.
 """

@@ -24,7 +24,8 @@ so the whole scale selection jits into the ICP loop.
 """
 from __future__ import annotations
 
-import flax.struct
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,15 +75,22 @@ def kernel_weight(r, delta, kernel_type: str):
     return delta**2 / (delta**2 + r**2)
 
 
-@flax.struct.dataclass
+@dataclasses.dataclass(frozen=True)
 class PKOConstants:
+    """Precomputed PKO tables (pytree leaves) plus the static GMM/kernel
+    settings (pytree metadata: a change retraces)."""
     alphas: jax.Array          # (A,) candidate scales (index 0 = min, skipped)
     Z: jax.Array               # (A,) partition functions
     r_grid: jax.Array          # (G,) discretized residual grid
     Q: jax.Array               # (A, G) normalized kernel distribution + eps
-    kernel_type: str = flax.struct.field(pytree_node=False)
-    gmm_components: int = flax.struct.field(pytree_node=False)
-    gmm_sample_size: int = flax.struct.field(pytree_node=False)
+    kernel_type: str
+    gmm_components: int
+    gmm_sample_size: int
+
+
+jax.tree_util.register_dataclass(
+    PKOConstants, data_fields=["alphas", "Z", "r_grid", "Q"],
+    meta_fields=["kernel_type", "gmm_components", "gmm_sample_size"])
 
 
 def make_pko_constants(min_scale: float, max_scale: float, num_segments: int,
@@ -277,8 +285,8 @@ def stratified_sample(residuals: jax.Array, valid: jax.Array, m: int,
     valid entries by cumsum, invert rank -> index with one unique
     scatter, and draw one uniform rank per stratum (distinct ranks by
     construction when n_valid >= m). The previous argsort-of-noise
-    draw paid a full n-element sort per ICP iteration (~0.1 ms at 14k
-    on v5e) for the same statistical job; the reference semantics —
+    draw paid a full n-element sort per ICP iteration for the same
+    statistical job; the reference semantics —
     fixed-seed uniform subsample, AdaptiveMEstimator.cpp:322 — keep
     determinism, not the exact index sequence (see module docstring).
 

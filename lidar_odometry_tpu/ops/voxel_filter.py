@@ -1,6 +1,6 @@
 """Scan downsampling: stride skip + voxel-grid centroid, fixed shapes.
 
-TPU-native redesign of the reference FastVoxelFilter (reference
+Fixed-shape redesign of the reference FastVoxelFilter (reference
 src/database/VoxelMap.h:53-140): instead of a Robin-Hood hash accumulate,
 points are keyed, sorted by voxel key, and reduced with a segmented mean —
 sort + segment ops are the canonical XLA formulation of hash-grouping and
@@ -20,9 +20,8 @@ Two key paths (static choice):
     Covers voxel coords in [-512, 512) — ±256 m at 0.5 m voxels, beyond
     any LiDAR return (sensor-frame scans; KITTI HDL-64E tops out ~120 m)
     — and drops the rare out-of-envelope point like a non-finite one.
-    The sort halves its operand count (2-operand 1-key), which is the
-    filter's dominant cost: measured 0.65 -> ~0.45 ms/frame on v5e at
-    16k points in the fused pipeline.
+    The sort halves its operand count (2-operand 1-key); the sort is the
+    filter's largest single op.
 """
 from __future__ import annotations
 
@@ -38,6 +37,9 @@ __all__ = ["voxel_filter", "compact_keys_ok"]
 _COMPACT_BITS = 10
 _COMPACT_HALF = 1 << (_COMPACT_BITS - 1)       # 512 voxels per half-axis
 _INVALID32 = jnp.uint32(0xFFFFFFFF)
+_LANE_BITS = 12             # fixed-point segment sums: two 12-bit lanes
+_LANE = 1 << _LANE_BITS
+_FIX_ONE = _LANE * _LANE    # quanta per voxel edge
 
 
 def compact_keys_ok(voxel_size: float, sensor_range: float) -> bool:
@@ -97,11 +99,11 @@ def voxel_filter(points: jax.Array, n_points: jax.Array, *, voxel_size,
     num_segments = min(out_capacity, n)
     n_voxels = jnp.sum(is_start.astype(jnp.int32))
 
-    # Per-segment reduction WITHOUT scatter-add: the two
-    # jax.ops.segment_sum calls (even with indices_are_sorted) were 82%
-    # of the whole filter's device time (measured 263 of 320 us/frame on
-    # v5e at 16k points). Segments tile the valid prefix of the sorted
-    # array contiguously (invalid keys sort to the end), so:
+    # Per-segment reduction WITHOUT scatter-add (it replaced two
+    # jax.ops.segment_sum calls; on a GPU a scatter-add is the plain
+    # form, and which is faster there is still to be measured). Segments
+    # tile the valid prefix of the sorted array contiguously (invalid
+    # keys sort to the end), so:
     #   * segment START positions in slot order are one cheap sort of
     #     where(is_start, position, n);
     #   * segment s spans [start_s, start_{s+1}); counts are EXACT
@@ -110,12 +112,15 @@ def voxel_filter(points: jax.Array, n_points: jax.Array, *, voxel_size,
     #     end_s = start_{s+1}-1, the lower prefix of segment s is the
     #     upper prefix of segment s-1 — ONE gather of the cumsum at the
     #     segment ends covers both sides.
-    # Precision: the cumsum runs over VOXEL-CORNER-RELATIVE coordinates
-    # (p - corner is exact — Sterbenz — and lives in [0, voxel_size)),
-    # so prefix magnitudes stay ~n*voxel_size/2 instead of random-walking
-    # with world coordinates; the reconstructed centroid is within
-    # ~1e-5 m of the direct per-voxel sum — below the reference's own
-    # f32 sequential-accumulate error (~3e-4 at 100 m ranges).
+    # Precision: the cumsum runs in FIXED POINT — voxel-corner-relative
+    # offsets (in [0, voxel_size)) quantized to 2^-24 of a voxel and
+    # summed as two 12-bit uint32 lanes. Integer sums are exact in any
+    # order, and uint32 wraparound leaves the difference of two prefixes
+    # exact while a voxel holds fewer than 2^20 points, so each
+    # centroid's offset from its voxel corner is exact to ~2^-24 of a
+    # voxel (float64 per-voxel mean as reference). A float32 prefix sum
+    # instead rounds at the prefix's magnitude (~n*voxel_size/2): ~4e-4 m
+    # at 16384 points, ~5 mm at 131072.
     start_pos = jax.lax.sort(
         jnp.where(is_start, pos, jnp.int32(n)))[:num_segments]
     has = start_pos < n
@@ -125,14 +130,19 @@ def voxel_filter(points: jax.Array, n_points: jax.Array, *, voxel_size,
     end_pos = jnp.minimum(next_start, n_valid) - 1
     counts = jnp.where(has, end_pos - jnp.minimum(start_pos, n - 1) + 1,
                        0).astype(pts.dtype)
-    coords_s = jnp.floor(pts_s * inv)
-    p_rel = jnp.where(valid_s[:, None], pts_s - coords_s * voxel_size, 0.0)
-    csum = jnp.cumsum(p_rel, axis=0)
+    corners = jnp.floor(pts_s * inv) * voxel_size
+    q = jnp.round((pts_s - corners) * (_FIX_ONE / voxel_size))
+    q = jnp.where(valid_s[:, None], jnp.clip(q, 0, _FIX_ONE - 1), 0)
+    q = q.astype(jnp.uint32)
+    lanes = jnp.concatenate([q >> _LANE_BITS, q & (_LANE - 1)], axis=1)
+    csum = jnp.cumsum(lanes, axis=0, dtype=jnp.uint32)      # (n, 6)
     end_c = jnp.clip(end_pos, 0, n - 1)
     up = csum[end_c]
-    corner = coords_s[end_c] * voxel_size     # constant within a segment
-    lo_prev = jnp.concatenate([jnp.zeros((1, 3), pts.dtype), up[:-1]])
-    sums_rel = jnp.where(has[:, None], up - lo_prev, 0.0)
+    corner = corners[end_c]                   # constant within a segment
+    lo_prev = jnp.concatenate([jnp.zeros((1, 6), jnp.uint32), up[:-1]])
+    sums_q = jnp.where(has[:, None], up - lo_prev, 0).astype(pts.dtype)
+    sums_rel = ((sums_q[:, :3] * _LANE + sums_q[:, 3:])
+                * (voxel_size / _FIX_ONE))
 
     centroids = corner + sums_rel / jnp.maximum(counts, 1.0)[:, None]
     centroids = jnp.where(has[:, None], centroids, 0.0)

@@ -1,5 +1,5 @@
 """2-level hierarchical voxel surfel map — parent-relative child store +
-bucketed exact hash index over parents (TPU-native redesign of the
+bucketed exact hash index over parents (fixed-shape array redesign of the
 reference VoxelMap, reference src/database/VoxelMap.{h,cpp}).
 
 Reference semantics preserved:
@@ -21,19 +21,19 @@ Reference semantics preserved:
     centroid and recomputes all surfels (VoxelMap.cpp:264-366) — here a
     sort-based bulk rebuild.
 
-Design (TPU, v5 — profiled against v4 on v5e):
+Design:
   * THE key layout idea: an L0 voxel's address is fully determined by
     its parent — row = parent_slot * 27 + child_offset of l0_data
     (C1*27, 4) f32 [count | sum xyz]. One hash index (over L1 parents)
     serves both levels; there is no L0 index, no L0 slot allocation, no
-    free-stack and no parent/child pointer bookkeeping (v4 spent ~1 ms
-    per update on the L0 claim rounds + l1_children maintenance).
+    free-stack and no parent/child pointer bookkeeping (an earlier design
+    with an L0 index spent much of each update on L0 claim rounds and
+    child-list maintenance).
     Occupancy is implicit: count > 0. Invariant: a free parent slot's
     27 rows are all-zero (eviction/deletion zero rows synchronously).
-  * Child stats for surfel recompute gather ONE CONTIGUOUS 432 B row
-    per cell — l0_data viewed as (C1, 108) — instead of 27 random
-    16 B rows per cell (v4 paid ~0.6 ms/update for those gathers;
-    random-row gathers on v5e are latency-bound at ~20 ns/row).
+  * Child stats for surfel recompute gather either ONE CONTIGUOUS 432 B
+    row per cell — l0_data viewed as (C1, 108) — or the 27 16 B rows of
+    each cell, picked by table size (_VIEW_GATHER_MAX_C1, see do_evict).
   * The parent hash index is one wide row per BUCKET of 8 cells:
     (B, 32) i32 = [slot x8 | key_hi x8 | key_lo x8 | pad]. A lookup is
     ONE row gather + 8 in-register compares. The index is EXACT (each
@@ -48,15 +48,14 @@ Design (TPU, v5 — profiled against v4 on v5e):
     prefilter was tried and rejected: never-evicting margin-band
     parents saturate the candidate list and stall real evictions.
   * Every scatter whose targets are unique by construction carries
-    unique_indices=True — without it XLA lowers masked scatters to
-    sort-based combines (one full sort per column; the dominant cost
-    in the v5.0 device trace). The only sort-backed scatters left are
+    unique_indices=True, which lets XLA emit a plain scatter instead of
+    a duplicate-combining one. The only combining scatters left are
     small: per-parent child-count increments at new_cap.
   * All data-dependent set sizes (new children, affected parents,
     recompute list, evictions, deletions) are compacted to fixed caps
-    by sort (a 16k sort is ~10 us on v5e); two size tiers (lax.cond on
-    the exact new-child count) keep the steady-state program small
-    while first keyframes / teleports take full-size caps.
+    by sort; size tiers (lax.switch on the exact new-child count) keep
+    the steady-state program small while first keyframes / teleports
+    take full-size caps.
 """
 from __future__ import annotations
 
@@ -92,7 +91,7 @@ def _scaled_caps(c1: int, p: int):
     maps (parallel/sharded_map.py: c1/S cells, O(scan/S) points) get
     proportionally smaller compaction/scatter programs — with fixed caps
     an S=8 shard paid full-scan-sized sorts and scatters per update,
-    capping strong-scaling efficiency at ~30% (SCALING.json round 2.0).
+    so shard count bought almost nothing.
     Overflow semantics are unchanged: evictions/deletions defer, dropped
     inserts count into n_dropped."""
     evict_cap = max(256, min(EVICT_LIST, c1 // 32))
@@ -101,7 +100,7 @@ def _scaled_caps(c1: int, p: int):
     # make_blocked_runner, p = block*B*scan_capacity) lands B keyframes'
     # worth of novelty per call (~2k voxels each), and a fixed 4096 cap
     # pushed EVERY steady block into the bulk tier whose machinery
-    # scales with p itself — measured 92 vs 541 scans/s at B=4. At
+    # scales with p itself (several times slower at B=4). At
     # single-chip scan shapes (p=14k) the floor keeps today's 4096.
     small_cap = max(256, min(max(SMALL_CAP, p // 8),
                              max(c1 // 16, p // 4)))
@@ -185,9 +184,9 @@ def _bucket_find(index, qhi, qlo):
 
 
 def _compact(mask: jax.Array, cap: int):
-    """Indices of True positions, compacted to (cap,) (-1 padded).
-    Sort-based: a 16k sort is ~10 us on v5e while an equivalent scatter
-    costs 0.1-1 ms."""
+    """Indices of True positions, compacted to (cap,) (-1 padded), by one
+    sort of where(mask, index, n) — order-preserving, so callers can map
+    results back by prefix rank."""
     n = mask.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
     key = jnp.where(mask, idx, jnp.int32(n))
@@ -247,10 +246,8 @@ def _claim_round(index, meta, free, top, qhi, qlo, want,
     new_slot = jnp.where(can, new_slot, -1)
     n_alloc = jnp.sum(can.astype(jnp.int32))
 
-    # --- writes. Index cells / meta rows are unique by construction;
-    # unique_indices=True matters: without it XLA lowers every masked
-    # scatter to a sort-based combine (one full sort PER COLUMN — the
-    # dominant cost in the v5.0 trace).
+    # --- writes. Index cells / meta rows are unique by construction,
+    # declared with unique_indices=True (no duplicate combining).
     qh_i = jax.lax.bitcast_convert_type(qhi, jnp.int32)
     ql_i = jax.lax.bitcast_convert_type(qlo, jnp.int32)
     flat = index.reshape(-1)
@@ -421,15 +418,15 @@ def update_map(state: VoxelMapState, new_pts: jax.Array, new_mask: jax.Array,
         evp = jnp.clip(ev_list, 0, c1 - 1)
         ev_rows = (evp[:, None] * NCH
                    + jnp.arange(NCH, dtype=jnp.int32)[None, :]).reshape(-1)
-        # Per-parent child-block gather. Two lowerings, picked by table
-        # size: the (c1, NCH*4) contiguous view wins on SMALL per-shard
-        # tables (one 108-wide row per parent instead of 27 narrow
-        # 4-wide rows, a top-5 op in the S=8 trace) — but materializing
-        # that view relayouts the whole l0_data array, which at
-        # single-chip capacity (c1=64k, 28 MB) costs ~3 ms per keyframe
-        # update and was THE round-3 single-chip regression
-        # (533 -> 377 scans/s). Row-addressed gathers touch only the
-        # gathered rows and win whenever the table dwarfs the gather.
+        # Per-parent child-block gather. Two forms, picked by table
+        # size: the (c1, NCH*4) contiguous view gathers one 108-wide row
+        # per parent instead of 27 narrow 4-wide rows, which pays on
+        # SMALL per-shard tables — but materializing that view may
+        # relayout the whole l0_data array (28 MB at c1=64k) every
+        # keyframe update. Row-addressed gathers touch only the gathered
+        # rows and win whenever the table dwarfs the gather. The
+        # threshold was tuned on another accelerator; which form wins
+        # on a GPU at each shape is still to be measured.
         if c1 <= _VIEW_GATHER_MAX_C1:
             blk = l0_data.reshape(c1, NCH * 4)[evp].reshape(
                 evict_list, NCH, 4)
@@ -628,9 +625,9 @@ def update_map(state: VoxelMapState, new_pts: jax.Array, new_mask: jax.Array,
                 # map R verdicts back onto the affected list by RANK
                 # GATHER, not scatter: _compact is order-preserving, so
                 # the r-list position of affected row j is its prefix
-                # rank among recompute rows (a bool scatter here lowered
-                # to a ~0.7 us/row serial loop on v5e — the single
-                # hottest op of the steady S=8 update trace)
+                # rank among recompute rows (a gather has no write
+                # conflicts to resolve; the bool scatter it replaced
+                # lowered to a serial loop)
                 r_rank = jnp.cumsum(recompute.astype(jnp.int32)) - 1
                 in_r = recompute & (r_rank < r_cap)
                 rr = jnp.clip(r_rank, 0, r_cap - 1)
@@ -736,9 +733,9 @@ def update_map(state: VoxelMapState, new_pts: jax.Array, new_mask: jax.Array,
     #            steady keyframe);
     #   middle — identical caps but a 2x resolve compaction: keyframes
     #            whose fresh voxels cluster >1 point/parent flip here
-    #            instead of to bulk (measured 3.1 ms vs 1.6 ms per
-    #            keyframe on v5e — and widening small's resolve cap for
-    #            everyone cost 30 fps, so the widening is its own tier);
+    #            instead of to bulk (about twice the small tier's cost,
+    #            and widening small's resolve cap for everyone made every
+    #            steady keyframe pay it, so the widening is its own tier);
     #   bulk   — first keyframes / teleports: full-size caps.
     # Caps never exceed what the input size can produce: at most p new
     # voxels, at most p + evict_list affected parents — so small scans
@@ -790,28 +787,6 @@ def update_map(state: VoxelMapState, new_pts: jax.Array, new_mask: jax.Array,
 # queries
 # ---------------------------------------------------------------------------
 
-# XLA:TPU lowers row gathers from (rows, 8) f32 tables in a band of
-# table sizes around 2^18 rows to a ~2x-slower strategy: measured on v5e
-# with a built map and 90112 queries, the surfel-payload gather costs
-# 1.42 ms at 262144 or 278528 rows vs ~0.70 ms at 131072, 327680 or
-# 524288 rows — identical op, only the operand row count differs, and
-# no index-side change (barrier / sort / split) affects it. Padding the
-# gather OPERAND past the band (a ~2 MB concat inside the program,
-# ~20 us) restores the fast lowering. This is exactly the dense-S=2
-# sharded configuration (c1_total 524288 / 2 shards), the round-4
-# SCALING.json S=2 anomaly.
-_GATHER_BAD_LO, _GATHER_BAD_HI = 196608, 327680
-
-
-def _degather_pad(table: jax.Array) -> jax.Array:
-    rows = table.shape[0]
-    if _GATHER_BAD_LO <= rows < _GATHER_BAD_HI:
-        pad = _GATHER_BAD_HI - rows
-        return jnp.concatenate(
-            [table, jnp.zeros((pad,) + table.shape[1:], table.dtype)])
-    return table
-
-
 @partial(jax.jit, static_argnames=("hierarchy_factor",))
 def lookup_surfels(state: VoxelMapState, pts: jax.Array, *, voxel_size,
                    hierarchy_factor: int = 3):
@@ -823,7 +798,7 @@ def lookup_surfels(state: VoxelMapState, pts: jax.Array, *, voxel_size,
     qhi, qlo = K.pack_key(coords)
     slot, hit, _, _ = _bucket_find(state.l1_index, qhi, qlo)
     c1 = state.l1_meta.shape[0]
-    row = _degather_pad(state.l1_surfel)[jnp.clip(slot, 0, c1 - 1)]
+    row = state.l1_surfel[jnp.clip(slot, 0, c1 - 1)]
     valid = hit & (row[:, 7] > 0.5)
     return row[:, 0:3], row[:, 3:6], valid
 
@@ -847,7 +822,19 @@ def grid_knn_neighbors(state: VoxelMapState, pts: jax.Array, *, voxel_size,
     iteration (the dominant cost of KD-tree mode, round-4 VERDICT weak
     item 5); this cuts index-gather traffic 4.6x at radius 2.
     Returns (neighbors (N, K, 3), valid (N, K))."""
-    h = hierarchy_factor
+    addr, hit = _grid_knn_rows(state, pts, voxel_size, hierarchy_factor,
+                               radius)
+    n, m = addr.shape
+    data = state.l0_data[addr.reshape(-1)]
+    ok = hit & (data[:, 0].reshape(n, m) > 0.0)
+    cen = (data[:, 1:4] / jnp.maximum(data[:, 0:1], 1.0)).reshape(n, m, 3)
+    return cen, ok
+
+
+def _grid_knn_rows(state: VoxelMapState, pts, voxel_size, h: int,
+                   radius: int):
+    """l0_data row of every neighbor voxel of each query, and whether its
+    parent cell is indexed: (addr (N, K) i32, parent_hit (N, K))."""
     inv = 1.0 / voxel_size
     qc = K.voxel_coords(pts, inv)
     n = qc.shape[0]
@@ -858,7 +845,6 @@ def grid_knn_neighbors(state: VoxelMapState, pts: jax.Array, *, voxel_size,
         offs = jnp.asarray(np.stack(
             np.meshgrid(r, r, r, indexing="ij"),
             axis=-1).reshape(-1, 3).astype(np.int32))
-    m = offs.shape[0]
 
     # distinct-parent probe window: parents of [qc-r, qc+r] span at most
     # floor(2r/h)+2 consecutive values per axis
@@ -877,10 +863,8 @@ def grid_knn_neighbors(state: VoxelMapState, pts: jax.Array, *, voxel_size,
     pslot = pslot.reshape(n, s3)
     phit = phit.reshape(n, s3)
 
-    # Per-neighbor parent + child indices WITHOUT big-tensor integer
-    # division: TPUs have no hardware int div, and floor_divide over the
-    # (N, M, 3) neighbor tensor was ~75% of this whole query's device
-    # time (measured 38 of 52 ms). With v = (qc mod h) + off in
+    # Per-neighbor parent + child indices without integer division over
+    # the (N, M, 3) neighbor tensor: with v = (qc mod h) + off in
     # [-r, h-1+r], the parent hop is d = -1/0/+1 by comparison and the
     # child offset is v - h*d — all vector selects; the only divisions
     # left are on the (N, 3) per-point coords.
@@ -891,23 +875,13 @@ def grid_knn_neighbors(state: VoxelMapState, pts: jax.Array, *, voxel_size,
     base = pq - lo_par                                  # (N, 3) in [0, span)
     rel = base[:, None, :] + d
     pidx = (rel[..., 0] * span + rel[..., 1]) * span + rel[..., 2]
-    # neighbor -> parent-probe mapping as a one-hot MXU contraction:
-    # jnp.take_along_axis (a batched (N, M) gather over (N, S^3)) lowers
-    # to a slow path on TPU — measured 40 of the query's 52 ms; the
-    # one-hot einsum runs on the systolic array in ~2 ms
-    oh = jax.nn.one_hot(pidx, s3, dtype=jnp.float32)    # (N, M, S^3)
-    slot = jnp.einsum("nmk,nk->nm", oh,
-                      pslot.astype(jnp.float32)).astype(jnp.int32)
-    hit = jnp.einsum("nmk,nk->nm", oh,
-                     phit.astype(jnp.float32)) > 0.5
+    # neighbor -> its parent's probe result: a batched (N, M) gather
+    slot = jnp.take_along_axis(pslot, pidx, axis=1)
+    hit = jnp.take_along_axis(phit, pidx, axis=1)
 
     off_c = (cloc[..., 0] * h + cloc[..., 1]) * h + cloc[..., 2]
     c1 = state.l1_meta.shape[0]
-    addr = (jnp.clip(slot, 0, c1 - 1) * NCH + off_c).reshape(-1)
-    data = state.l0_data[addr]
-    ok = hit & (data[:, 0].reshape(n, m) > 0.0)
-    cen = (data[:, 1:4] / jnp.maximum(data[:, 0:1], 1.0)).reshape(n, m, 3)
-    return cen, ok
+    return jnp.clip(slot, 0, c1 - 1) * NCH + off_c, hit
 
 
 def l0_points(state: VoxelMapState):
@@ -921,7 +895,7 @@ def l0_points(state: VoxelMapState):
 def l0_records(state: VoxelMapState):
     """All live L0 voxels as records: (key_hi, key_lo, count, centroid,
     live), each (C1*27,)-shaped. Child voxel coords are derived from the
-    parent key + child offset (the v5 store keeps no per-child keys)."""
+    parent key + child offset (the store keeps no per-child keys)."""
     c1 = state.l1_meta.shape[0]
     pc = K.unpack_key(
         jax.lax.bitcast_convert_type(state.l1_meta[:, 0], jnp.uint32),
@@ -1000,10 +974,9 @@ def transform_and_rehash(state: VoxelMapState, T: jax.Array, *, voxel_size,
     Live records are COMPACTED to 4 children/parent-slot capacity before
     the rebuild: the child table has c1*27 rows but real maps occupy a
     few % of them, and every one of the ~15 indexed passes in bulk_build
-    scales with the record count (the uncompacted rebuild measured
-    276 ms per accepted loop on v5e — most of the loop-enabled
-    throughput gap). Maps denser than 4 children/slot on average drop
-    the excess VISIBLY into n_dropped."""
+    scales with the record count (uncompacted, the rebuild dominated the
+    cost of each accepted loop). Maps denser than 4 children/slot on
+    average drop the excess VISIBLY into n_dropped."""
     c1 = state.l1_meta.shape[0]
     m = c1 * NCH
     cap = min(4 * c1, m)

@@ -14,7 +14,8 @@ normal equations over `map`) -> keyframe map update executed SHARD-LOCALLY
 on the owned subset of the scan. Per-keyframe communication is the
 O(scan) broadcast of points plus the psum'd 6x6 systems — no table
 movement (the round-1 version all-gathered every slot table per
-keyframe). Collectives ride ICI: psum inside shard_map.
+keyframe). Collectives are psums inside shard_map (NCCL over NVLink on
+a multi-GPU host).
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ Ownership is by PARENT-CELL hash: shard s owns every L1 cell whose key
 hashes to s (mod n_shards), and every L0 voxel whose parent hashes to s —
 children are therefore CO-LOCATED with their parent, so each shard is a
 complete, independent single-chip map (ops/voxel_map.py) holding its own
-bucket index, slot stores and free stacks. This is the TPU analog of
-distributing the reference's hash tables (reference
+bucket index, slot stores and free stacks. This is the device-mesh
+analog of distributing the reference's hash tables (reference
 src/database/VoxelMap.h:309,324) across devices (SURVEY.md §2.4).
 
 Communication costs (the round-2 redesign; round 1 all-gathered the whole
@@ -257,7 +257,7 @@ def robust_icp_loop(local_state: vm.VoxelMapState, p, m, T0, cap: int,
         shard contributes a stratified sample of its OWN residuals
         into its slice of a fixed sample buffer, and the 6x6 normal
         equations are accumulated PER CANDIDATE ALPHA as one
-        (A, n)@(n, 42) matmul (MXU work that scales with n/S). The
+        (A, n)@(n, 42) matmul (work that scales with n/S). The
         [per-alpha systems | sample slots | count] buffer psums as a
         single ~17 KB collective; the GMM fit + JS argmin then runs
         replicated on identical psum'd samples and selects the

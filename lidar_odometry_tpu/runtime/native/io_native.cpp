@@ -3,7 +3,7 @@
 // The reference is a C++ system whose dataset drivers stream KITTI .bin /
 // PLY files from disk on the frame loop (reference
 // app/player/kitti_player.cpp:334, src/util/PointCloudUtils.cpp:19-100).
-// On the TPU build, host CPU time is the scarce resource feeding the
+// Host CPU time is the scarce resource feeding the
 // device, so file parsing and read-ahead live in C++: a double-buffered
 // prefetch thread decodes the next scans while the current one is on the
 // accelerator. Exposed through a plain C ABI for ctypes.

@@ -12,8 +12,8 @@ src/util/MathUtils.cpp:23-174) including:
     near-orthogonal inputs and avoids a general SVD inside jit.
 
 All functions are shape-polymorphic over leading batch dimensions and
-preserve the input dtype (float32 on the TPU hot path; float64 available
-for the pose-graph solver on CPU).
+preserve the input dtype (float32 on the device hot path; float64 available
+for the pose-graph solver).
 """
 from __future__ import annotations
 
@@ -114,7 +114,7 @@ def so3_project(R: jax.Array, iters: int = 3) -> jax.Array:
     (MathUtils.cpp:86-99). For matrices already close to a rotation the
     Newton iteration  R <- 1.5 R - 0.5 R R^T R  converges quadratically to
     the same nearest orthogonal factor; 3 iterations reach machine
-    precision and compile to plain matmuls on the MXU.
+    precision and compile to plain 3x3 matmuls.
     """
     for _ in range(iters):
         R = 1.5 * R - 0.5 * (R @ jnp.swapaxes(R, -1, -2) @ R)

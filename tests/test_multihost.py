@@ -18,6 +18,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import jax
 jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_compilation_cache", False)
 sys.path.insert(0, os.environ["REPO_ROOT"])
 from lidar_odometry_tpu.parallel import mesh as mesh_mod
 

@@ -197,13 +197,12 @@ def test_large_fresh_keyframe_gets_full_surfel_coverage():
 
 
 def test_degather_pad_preserves_lookup():
-    """The gather-band sidestep (round-5): lookups against a map whose
-    surfel table falls in the padded band are identical to the
-    un-padded semantics (padding rows are never addressed)."""
+    """Surfel lookups do not depend on the surfel table's size: the same
+    points built into a 262144-row and a 16384-row table give identical
+    hits and values."""
     import jax.numpy as jnp
     import numpy as np
     from lidar_odometry_tpu.ops import voxel_map as vm
-    assert vm._GATHER_BAD_LO <= 262144 < vm._GATHER_BAD_HI
     from lidar_odometry_tpu.io import synthetic
     world = synthetic.make_world(seed=6, extent=40.0, n_buildings=10)
     rng = np.random.default_rng(6)
@@ -211,8 +210,8 @@ def test_degather_pad_preserves_lookup():
     pts = synthetic.sample_scan(world, pose, 4000, rng, max_range=35.0,
                                 noise=0.01)[:4000]
     n_pts = len(pts)
-    st_band = vm.empty_map(65536, 262144)   # surfel table in the band
-    st_ref = vm.empty_map(65536, 16384)     # out of the band
+    st_band = vm.empty_map(65536, 262144)   # large surfel table
+    st_ref = vm.empty_map(65536, 16384)     # small surfel table
     for st in (st_band, st_ref):
         st2 = vm.update_map(st, jnp.asarray(pts), jnp.ones(n_pts, bool),
                             jnp.zeros(3), 120.0, voxel_size=0.5,

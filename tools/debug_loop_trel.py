@@ -8,10 +8,8 @@ regression can be attributed to the loop factors vs PGO/rehash effects.
 """
 import os
 import sys
+import tempfile
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tpu")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 import numpy as np
 
@@ -24,7 +22,8 @@ from lidar_odometry_tpu.models.estimator import Estimator  # noqa: E402
 
 def main():
     n_frames, cap = 750, 16384
-    cache = f"/tmp/bench_rings_{bench._generator_tag()}_{n_frames}_{cap}.npz"
+    cache = os.path.join(tempfile.gettempdir(),
+                         f"bench_rings_{bench._generator_tag()}_{n_frames}_{cap}.npz")
     d = np.load(cache)
     scans, gt = d["scans"], d["poses"]
 

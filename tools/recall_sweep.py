@@ -4,7 +4,7 @@ match-score distributions for controlled revisits at offsets 0-15 m plus
 random-pair negatives, and the detection rate per threshold. Writes
 RECALL.json at the repo root.
 
-Run on CPU or TPU: python tools/recall_sweep.py
+Run on the CPU or the GPU: python tools/recall_sweep.py
 """
 import json
 import os
